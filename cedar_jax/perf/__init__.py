@@ -1,0 +1,300 @@
+"""Analytic cycle performance model + agglomeration-schedule search.
+
+Counterpart of the reference's C++ performance subsystem (SURVEY §2.5:
+src/perf/vcycle_model.cc, ss/astar.h, perf/search.cc, redist_generator),
+re-designed for a mesh of accelerators: placements are mesh-axis subsets
+(sharded vs replicated per axis), per-level cost combines device-memory
+streaming time on the largest shard, flops, and halo traffic over the
+device links, and the
+optimal MONOTONE agglomeration schedule (axes only dropped as levels
+coarsen) is found by A* over the (level, axis-subset) DAG.
+
+The hot implementation is native C++ (cedar_jax/native/perf_model.cc,
+compiled on first use); :func:`search_schedule` falls back to the
+identical pure-Python model when no C++ toolchain is available.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import heapq
+import math
+import os
+import subprocess
+from dataclasses import dataclass
+
+_SRC = os.path.join(
+    os.path.dirname(__file__), os.pardir, "native", "perf_model.cc"
+)
+_LIB = os.path.join(
+    os.path.dirname(__file__), os.pardir, "native", "libcedar_perf.so"
+)
+
+_lib = None
+_lib_tried = False
+
+
+def _load_native():
+    global _lib, _lib_tried
+    if _lib_tried:
+        return _lib
+    _lib_tried = True
+    try:
+        if not os.path.exists(_LIB) or (
+            os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
+        ):
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                 _SRC, "-o", _LIB],
+                check=True, capture_output=True, timeout=120,
+            )
+        lib = ctypes.CDLL(_LIB)
+        c = ctypes
+        lib.cedar_perf_cycle_time.restype = c.c_double
+        lib.cedar_perf_cycle_time.argtypes = [
+            c.POINTER(c.c_int64), c.c_int, c.c_int, c.c_int, c.c_int,
+            c.c_int, c.POINTER(c.c_int), c.POINTER(c.c_uint),
+            c.c_double, c.c_double, c.c_double, c.c_double, c.c_int,
+            c.c_double,
+        ]
+        lib.cedar_perf_search.restype = c.c_double
+        lib.cedar_perf_search.argtypes = [
+            c.POINTER(c.c_int64), c.c_int, c.c_int, c.c_int, c.c_int,
+            c.c_int, c.POINTER(c.c_int), c.POINTER(c.c_uint),
+            c.c_double, c.c_double, c.c_double, c.c_double, c.c_int,
+            c.c_double, c.POINTER(c.c_uint),
+        ]
+        _lib = lib
+    except (OSError, subprocess.SubprocessError):
+        _lib = None
+    return _lib
+
+
+@dataclass
+class MachineParams:
+    """Machine model (reference: config "machine.*" plus device terms).
+
+    Defaults describe one NVIDIA H100 SXM card; the bandwidths and the
+    float32 rate are NVIDIA data-sheet values (HBM3 3.35 TB/s, NVLink
+    450 GB/s each way, 67 TFLOP/s float32 outside the tensor cores), the
+    link latency and per-op overhead are model assumptions.  The
+    reference's knobs map as bandwidth -> link_bw, latency -> link_lat,
+    fp_perf -> 1/flop_rate.
+    """
+
+    hbm_bw: float = 3.35e12
+    link_bw: float = 450e9
+    link_lat: float = 1e-6
+    flop_rate: float = 67e12
+    op_overhead: float = 2e-6   # fixed cost per launched device op
+
+    @classmethod
+    def from_config(cls, conf) -> "MachineParams":
+        return cls(
+            hbm_bw=conf.get("machine.hbm-bandwidth", 3.35e12),
+            link_bw=conf.get("machine.bandwidth", 450e9),
+            link_lat=conf.get("machine.latency", 1e-6),
+            flop_rate=1.0 / conf.get("machine.fp_perf", 1 / 67e12),
+            op_overhead=conf.get("machine.overhead", 2e-6),
+        )
+
+
+def _pad3(shape):
+    return tuple(shape) + (1,) * (3 - len(shape))
+
+
+def _shard_points(shape, mesh, mask):
+    pts = 1
+    for d, n in enumerate(shape):
+        if mask >> d & 1:
+            n = -(-n // mesh[d])
+        pts *= n
+    return pts
+
+
+def _halo_bytes(shape, mesh, mask, bpe):
+    total = 0
+    for d in range(len(shape)):
+        if not (mask >> d & 1) or mesh[d] <= 1:
+            continue
+        face = 1
+        for e, n in enumerate(shape):
+            if e == d:
+                continue
+            if mask >> e & 1:
+                n = -(-n // mesh[e])
+            face *= n
+        total += 2 * face * bpe
+    return total
+
+
+def _level_time(shape, stencil, nsweeps, mesh, mask, m, bpe):
+    pts = _shard_points(shape, mesh, mask)
+    planes = (stencil + 1) // 2 + 1
+    passes = nsweeps + 3
+    hbm_t = pts * bpe * (planes + 3) * passes / m.hbm_bw
+    comp_t = 2.0 * stencil * pts * passes / m.flop_rate
+    comm_t = 0.0
+    hb = _halo_bytes(shape, mesh, mask, bpe)
+    if hb:
+        comm_t = (nsweeps + 2) * (hb / m.link_bw + m.link_lat)
+    return max(hbm_t, comp_t) + comm_t + passes * m.op_overhead
+
+
+def _cg_solve_time(shape, mesh, mask, m, bpe):
+    """Direct coarse solve: dense inverse applied by matmul on the
+    REPLICATED coarse system (the implementation always replicates the
+    coarsest level — "redundant" mode); the analogue of the
+    reference's DPBTRS term (src/perf/vcycle_model.cc:162 tcgsolve).
+    Mask-independent by construction."""
+    del mask
+    pts = _shard_points(shape, mesh, 0)
+    comp_t = 2.0 * pts * pts / m.flop_rate
+    hbm_t = pts * pts * bpe / m.hbm_bw
+    return max(hbm_t, comp_t) + m.op_overhead
+
+
+def _agglom_time(shape, mesh, from_mask, to_mask, m, bpe):
+    dropped = from_mask & ~to_mask
+    if not dropped:
+        return 0.0
+    shard = _shard_points(shape, mesh, from_mask) * bpe
+    t = 0.0
+    for d in range(len(shape)):
+        if not (dropped >> d & 1) or mesh[d] <= 1:
+            continue
+        p = mesh[d]
+        t += shard * (p - 1.0) / m.link_bw + (p - 1.0) * m.link_lat
+        shard *= p
+    return t
+
+
+def cycle_time(shapes, mesh, masks, machine: MachineParams,
+               stencil_fine=5, stencil_coarse=9, nsweeps=3,
+               dtype_bytes=4) -> float:
+    """Predicted seconds per V-cycle for a fixed per-level mask schedule."""
+    lib = _load_native()
+    nlevels = len(shapes)
+    ndim = len(shapes[0])
+    if lib is not None:
+        flat = (ctypes.c_int64 * (3 * nlevels))(
+            *[v for s in shapes for v in _pad3(s)]
+        )
+        cmesh = (ctypes.c_int * ndim)(*mesh)
+        cmasks = (ctypes.c_uint * nlevels)(*masks)
+        return lib.cedar_perf_cycle_time(
+            flat, nlevels, ndim, stencil_fine, stencil_coarse, nsweeps,
+            cmesh, cmasks,
+            ctypes.c_double(machine.hbm_bw), ctypes.c_double(machine.link_bw),
+            ctypes.c_double(machine.link_lat),
+            ctypes.c_double(machine.flop_rate), dtype_bytes,
+            ctypes.c_double(machine.op_overhead),
+        )
+    total = 0.0
+    for lvl, shape in enumerate(shapes):
+        st = stencil_fine if lvl == 0 else stencil_coarse
+        if lvl == nlevels - 1:
+            total += _cg_solve_time(shape, mesh, masks[lvl], machine,
+                                    dtype_bytes)
+        else:
+            total += _level_time(shape, st, nsweeps, mesh, masks[lvl],
+                                 machine, dtype_bytes)
+        if lvl + 1 < nlevels:
+            # agglomeration gathers the COARSE level's data; the coarsest
+            # level is always replicated (redundant coarse solve)
+            to = 0 if lvl + 1 == nlevels - 1 else masks[lvl + 1]
+            total += _agglom_time(shapes[lvl + 1], mesh, masks[lvl],
+                                  to, machine, dtype_bytes)
+    return total
+
+
+def search_schedule(shapes, mesh, allowed, machine: MachineParams,
+                    stencil_fine=5, stencil_coarse=9, nsweeps=3,
+                    dtype_bytes=4):
+    """Optimal monotone agglomeration schedule (A*).
+
+    ``allowed[l]`` is a bitmask of mesh axes that may be sharded at level
+    l (divisibility/minimum-size constraints); the coarsest level is
+    always replicated (redundant coarse solve), so its allowed mask is
+    forced to 0.  Returns (masks, seconds).
+    """
+    lib = _load_native()
+    nlevels = len(shapes)
+    ndim = len(shapes[0])
+    if lib is not None:
+        flat = (ctypes.c_int64 * (3 * nlevels))(
+            *[v for s in shapes for v in _pad3(s)]
+        )
+        cmesh = (ctypes.c_int * ndim)(*mesh)
+        callow = (ctypes.c_uint * nlevels)(*allowed)
+        out = (ctypes.c_uint * nlevels)()
+        cost = lib.cedar_perf_search(
+            flat, nlevels, ndim, stencil_fine, stencil_coarse, nsweeps,
+            cmesh, callow,
+            ctypes.c_double(machine.hbm_bw), ctypes.c_double(machine.link_bw),
+            ctypes.c_double(machine.link_lat),
+            ctypes.c_double(machine.flop_rate), dtype_bytes,
+            ctypes.c_double(machine.op_overhead), out,
+        )
+        return list(out), cost
+
+    # pure-Python A* (identical model)
+    nmasks = 1 << ndim
+
+    def lt(lvl, mask):
+        if lvl == nlevels - 1:
+            return _cg_solve_time(shapes[lvl], mesh, mask, machine,
+                                  dtype_bytes)
+        st = stencil_fine if lvl == 0 else stencil_coarse
+        return _level_time(shapes[lvl], st, nsweeps, mesh, mask, machine,
+                           dtype_bytes)
+
+    h = [0.0] * (nlevels + 1)
+    full = nmasks - 1
+    for lvl in range(nlevels - 1, -1, -1):
+        st = stencil_fine if lvl == 0 else stencil_coarse
+        pts = _shard_points(shapes[lvl], mesh, full)
+        planes = (st + 1) // 2 + 1
+        est = pts * dtype_bytes * (planes + 3) * (
+            nsweeps + 3) / machine.hbm_bw
+        if lvl == nlevels - 1:
+            est = 0.0  # the direct coarse solve may be cheaper
+        h[lvl] = h[lvl + 1] + est
+
+    dist = {}
+    parent = {}
+    openq = []
+    allow0 = 0 if nlevels == 1 else allowed[0]
+    for mk in range(nmasks):
+        if mk & ~allow0:
+            continue
+        c = lt(0, mk)
+        dist[(1, mk)] = c
+        parent[(1, mk)] = mk
+        heapq.heappush(openq, (c + h[1], 1, mk))
+    best = (math.inf, 0)
+    while openq:
+        f, lvl, mask = heapq.heappop(openq)
+        if f - h[lvl] > dist[(lvl, mask)] + 1e-18:
+            continue
+        if lvl == nlevels:
+            best = (dist[(lvl, mask)], mask)
+            break
+        # coarsest level: always replicated (redundant coarse solve)
+        allow_l = 0 if lvl == nlevels - 1 else allowed[lvl]
+        for mk in range(nmasks):
+            if mk & ~allow_l or mk & ~mask:
+                continue
+            step = _agglom_time(shapes[lvl], mesh, mask, mk, machine,
+                                dtype_bytes) + lt(lvl, mk)
+            c = dist[(lvl, mask)] + step
+            if c < dist.get((lvl + 1, mk), math.inf):
+                dist[(lvl + 1, mk)] = c
+                parent[(lvl + 1, mk)] = mask
+                heapq.heappush(openq, (c + h[lvl + 1], lvl + 1, mk))
+    masks = [0] * nlevels
+    mk = best[1]
+    for lvl in range(nlevels, 0, -1):
+        masks[lvl - 1] = mk
+        mk = parent[(lvl, mk)]
+    return masks, best[0]

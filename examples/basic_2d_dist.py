@@ -19,9 +19,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import jax
 import jax.numpy as jnp
 
-from cedar_tpu import FivePt, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.parallel import DistSolver2, make_mesh
+from cedar_jax import FivePt, gallery
+from cedar_jax.config import Config
+from cedar_jax.parallel import DistSolver2, make_mesh
 
 
 def main():

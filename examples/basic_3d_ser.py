@@ -12,8 +12,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax.numpy as jnp
 
-from cedar_tpu import SevenPt, Solver3, gallery
-from cedar_tpu.config import Config
+from cedar_jax import SevenPt, Solver3, gallery
+from cedar_jax.config import Config
 
 
 def main():

@@ -9,7 +9,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np
 
-import cedar_tpu.capi as capi
+import cedar_jax.capi as capi
 
 
 def main():

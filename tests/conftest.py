@@ -15,53 +15,35 @@ import jax  # noqa: E402
 jax.config.update("jax_enable_x64", True)
 jax.config.update("jax_default_device", jax.devices("cpu")[0])
 # NB: do NOT enable the persistent compilation cache here — XLA:CPU AOT
-# entries written under one set of target machine features (e.g. when the
-# TPU plugin is the default backend) mis-execute when loaded in another
-# context (observed as silently wrong kernel outputs).
+# entries written under one set of target machine features mis-execute
+# when loaded in another context (observed as silently wrong kernel
+# outputs).  bench.py and chip_smoke.py set it (cedar_jax.utils.cache).
 
 import pytest  # noqa: E402
 
 # Extended ("slow") tier: heavyweight compile-bound variants whose feature
-# coverage is duplicated by a cheaper test kept in the default tier.  The
-# machine has ONE CPU core, so whole-solver compiles dominate wall time;
-# the default `pytest tests/` deselects these (pytest.ini addopts) and the
-# extended tier runs with `pytest -m slow` (or everything: `pytest -m ""`).
+# coverage is duplicated by a cheaper test kept in the default tier.
+# Whole-solver compiles dominate CPU wall time; the default
+# `pytest tests/` deselects these (pytest.ini addopts) and the extended
+# tier runs with `pytest -m slow` (or everything: `pytest -m ""`).
 # Fast representative kept in the default tier, per marked test:
-#   dist_solver_pallas_backend_matches_xla -> test_sharded_sweep_* (kernel
-#     level) + test_dist2_matches_serial (solver level)
-#   sharded_sweep_2d spec1/2/3 -> spec0 (both parities) + the 3D variant
 #   line_relax_dist_interface_reduction / sharded_along_line ->
 #     test_ml_relax_disables... exercises dist lines; serial SPIKE/PCR
 #     equivalence stays in test_lines_2d
 #   anisotropic_line_y -> anisotropic_line_x (transpose of the same path)
 #   cgsolve_lu_vs_cedar_3d -> the 2D variant + 3D redist dryrun
-#   fused_conv_residual_3d -> the 2D variant + pallas3 fused-residual tests
 #   poisson*_irregular_sizes -> dist2_irregular (padding) + serial gates
 #   plane_xy_anisotropic_convergence -> plane oracle + plane_xyz_poisson
-#   line_solver_backend_equivalence[line-x] -> [line-xy] (superset)
-#   pallas3_2d_tiled_27pt_rounded_halo -> ..._xsplit (same kernel family)
-#   split_levels_2_solver_equivalence -> solver_split_resident (L0 split)
 SLOW_TIER = {
-    "test_dist_solver_pallas_backend_matches_xla",
-    "test_sharded_sweep_matches_xla_2d[spec1-True]",
-    "test_sharded_sweep_matches_xla_2d[spec1-False]",
-    "test_sharded_sweep_matches_xla_2d[spec2-True]",
-    "test_sharded_sweep_matches_xla_2d[spec2-False]",
-    "test_sharded_sweep_matches_xla_2d[spec3-True]",
-    "test_sharded_sweep_matches_xla_2d[spec3-False]",
     "test_line_relax_dist_interface_reduction",
     "test_line_relax_sharded_along_line_axis",
     "test_ml_relax_knob_selects_log_depth_algorithm",
     "test_anisotropic_line_y",
     "test_spike_matches_pcr_sweep",
     "test_cgsolve_lu_vs_cedar_3d",
-    "test_fused_conv_residual_3d",
     "test_poisson3_irregular_sizes",
     "test_poisson_irregular_sizes",
     "test_plane_xy_anisotropic_convergence",
-    "test_line_solver_backend_equivalence[line-x]",
-    "test_pallas3_2d_tiled_27pt_rounded_halo",
-    "test_split_levels_2_solver_equivalence",
     # mesh-shape sweep: (2,4) and the degenerate (8,1) stay in the
     # default tier ((1,8) is the lane-axis transpose of (8,1))
     "test_dist2_mesh_shape_diversity[shape2]",

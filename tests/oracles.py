@@ -3,8 +3,8 @@
 These are the independent test oracles (the role pyamg/Cython oracles play in
 the reference's test suite, SURVEY §4): sequential loops over ghost-padded
 1-based-style arrays, transcribed statement-by-statement from
-/root/reference/src/2d/ftn/*.f90 so that any deviation of the vectorized
-TPU kernels from the reference semantics is caught exactly.
+the reference's src/2d/ftn/*.f90 so that any deviation of the vectorized
+kernels from the reference semantics is caught exactly.
 
 Array convention here matches the Fortran: ghost-padded, shape (II, JJ) with
 interior 1..II-2 (0-based), i.e. Fortran index I corresponds to numpy index

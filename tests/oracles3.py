@@ -1,7 +1,7 @@
 """Literal numpy transcriptions of the reference Fortran kernels (3D).
 
 Independent test oracles for the 3D kernel stack, transcribed
-statement-by-statement from /root/reference/src/3d/ftn/*.f90 (non-periodic
+statement-by-statement from the reference's src/3d/ftn/*.f90 (non-periodic
 branches), in the same style as tests/oracles.py.
 
 Arrays are ghost-padded, Fortran index I -> numpy index I-1.  Stencil plane

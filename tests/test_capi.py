@@ -4,8 +4,8 @@ src/2d/interface/c/solver.cc)."""
 import numpy as np
 import jax.numpy as jnp
 
-import cedar_tpu.capi as capi
-from cedar_tpu import gallery
+import cedar_jax.capi as capi
+from cedar_jax import gallery
 
 
 def test_capi_2d_roundtrip():
@@ -19,8 +19,8 @@ def test_capi_2d_roundtrip():
     # operator apply: A x against the module-level matvec
     x0 = np.random.default_rng(0).standard_normal((n, n))
     ax = capi.bmg2_operator_apply(op, x0)
-    from cedar_tpu.core.types import StencilKind
-    from cedar_tpu.ops.stencil2 import matvec
+    from cedar_jax.core.types import StencilKind
+    from cedar_jax.ops.stencil2 import matvec
 
     np.testing.assert_allclose(
         ax, np.asarray(matvec(jnp.asarray(so), jnp.asarray(x0),

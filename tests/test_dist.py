@@ -14,15 +14,15 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from cedar_tpu import FivePt, SevenPt, Solver2, Solver3, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.core.types import StencilKind
-from cedar_tpu.parallel import DistSolver2, DistSolver3, make_mesh
-from cedar_tpu.parallel.policy import batched_sharding, func_sharding
-from cedar_tpu.ops.relax2 import point_relax, setup_recip
-from cedar_tpu.ops.stencil2 import residual as residual2
-from cedar_tpu.ops.interp2 import interp_add, restrict, setup_interp
-from cedar_tpu.ops.stencil3 import residual as residual3
+from cedar_jax import FivePt, SevenPt, Solver2, Solver3, gallery
+from cedar_jax.config import Config
+from cedar_jax.core.types import StencilKind
+from cedar_jax.parallel import DistSolver2, DistSolver3, make_mesh
+from cedar_jax.parallel.policy import batched_sharding, func_sharding
+from cedar_jax.ops.relax2 import point_relax, setup_recip
+from cedar_jax.ops.stencil2 import residual as residual2
+from cedar_jax.ops.interp2 import interp_add, restrict, setup_interp
+from cedar_jax.ops.stencil3 import residual as residual3
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +134,7 @@ def test_dist3_matches_serial(mesh3):
 
 def test_dist2_irregular_size(mesh2):
     """Non-divisible fine extents are inert-padded to the mesh (the
-    TPU-native analogue of the reference's uneven block partition,
+    mesh analogue of the reference's uneven block partition,
     include/cedar/mpi/block_partition.h:8-34) — the fine level is
     actually sharded, and the solve stays correct."""
     n = 75
@@ -188,7 +188,7 @@ def test_dist3_plane_relax_matches_serial(mesh3):
     b = gallery.poisson3_rhs(n, n, n)
     conf = {"log": [], "solver": {"relaxation": "plane-xy",
                                   "tol": 1e-9, "max-iter": 10}}
-    from cedar_tpu import Solver3 as _S3
+    from cedar_jax import Solver3 as _S3
 
     x_ser = _S3(so, SevenPt, Config(dict(conf))).solve(b)
     s_dist = DistSolver3(so, SevenPt, Config(dict(conf)), mesh3)
@@ -225,7 +225,7 @@ def test_line_relax_dist_interface_reduction(mesh2):
     one-gather-per-color LineSolve_A/B/C scheme
     (src/2d/ftn/mpi/BMG2_SymStd_relax_lines_x.f90:156-277) — and agrees
     with the serial solver."""
-    from cedar_tpu.ops.lines2 import DistSpikeLines
+    from cedar_jax.ops.lines2 import DistSpikeLines
 
     n = 64
     so = gallery.diag_diffusion(n, n, 50.0, 1.0)
@@ -245,7 +245,7 @@ def test_ml_relax_disables_dist_interface_reduction(mesh2):
     """solver.ml-relax.enabled keeps distributed lines on the log-depth
     algorithm (the reference's "n-level" ml_relax variant) and still
     matches the serial solve."""
-    from cedar_tpu.ops.lines2 import DistSpikeLines
+    from cedar_jax.ops.lines2 import DistSpikeLines
 
     n = 64
     so = gallery.fe(n, n)
@@ -329,3 +329,60 @@ def test_dist3_odd_extent_partitioned_matches_serial(mesh3):
     x_dist = s_dist.solve(b)
     assert x_dist.shape == (n, n, n)
     assert float(jnp.max(jnp.abs(x_ser - jax.device_get(x_dist)))) < 1e-9
+
+
+@pytest.mark.parametrize("nine", [False, True])
+@pytest.mark.parametrize("spec", [P("x", "y"), P("x", None), P(None, "y")])
+def test_sharded_sweep_matches_serial_2d(mesh2, nine, spec):
+    """The XLA sweep (and its residual) on a sharded grid equals the
+    serial one: color masks anchor to global indices and the shifted reads
+    become halo exchanges (float64: to reassociation roundoff)."""
+    from test_kernels_2d import random_so
+
+    rng = np.random.default_rng(11 + nine)
+    nx, ny = 256, 480
+    kind = StencilKind.nine_pt if nine else StencilKind.five_pt
+    so = jnp.asarray(random_so(rng, nx, ny, nine))
+    q = jnp.asarray(rng.standard_normal((nx, ny)))
+    b = jnp.asarray(rng.standard_normal((nx, ny)))
+    so_s = jax.device_put(so, batched_sharding(mesh2, spec, 1))
+    q_s = jax.device_put(q, func_sharding(mesh2, spec))
+    b_s = jax.device_put(b, func_sharding(mesh2, spec))
+
+    def sweep(so, q, b):
+        x = point_relax(so, q, b, setup_recip(so), kind, "down")
+        x = point_relax(so, x, b, setup_recip(so), kind, "up")
+        return x, residual2(so, x, b, kind)
+
+    ref = sweep(so, q, b)
+    got = jax.jit(sweep)(so_s, q_s, b_s)
+    assert got[0].sharding.is_equivalent_to(func_sharding(mesh2, spec), 2)
+    for r, g in zip(ref, got):
+        np.testing.assert_allclose(np.asarray(r), np.asarray(g), atol=1e-12)
+
+
+@pytest.mark.parametrize("twenty_seven", [False, True])
+@pytest.mark.parametrize("spec", [P("x", "y", "z"), P(None, None, "z")])
+def test_sharded_sweep_matches_serial_3d(mesh3, twenty_seven, spec):
+    from cedar_jax.ops import relax3
+    from test_kernels_3d import random_so
+
+    rng = np.random.default_rng(13 + twenty_seven)
+    shape = (32, 48, 64)
+    kind = (StencilKind.twenty_seven_pt if twenty_seven
+            else StencilKind.seven_pt)
+    so = jnp.asarray(random_so(rng, *shape, twenty_seven))
+    q = jnp.asarray(rng.standard_normal(shape))
+    b = jnp.asarray(rng.standard_normal(shape))
+
+    def sweep(so, q, b):
+        x = relax3.point_relax(so, q, b, relax3.setup_recip(so), kind,
+                               "down")
+        return x, residual3(so, x, b, kind)
+
+    ref = sweep(so, q, b)
+    got = jax.jit(sweep)(jax.device_put(so, batched_sharding(mesh3, spec, 1)),
+                         jax.device_put(q, func_sharding(mesh3, spec)),
+                         jax.device_put(b, func_sharding(mesh3, spec)))
+    for r, g in zip(ref, got):
+        np.testing.assert_allclose(np.asarray(r), np.asarray(g), atol=1e-12)

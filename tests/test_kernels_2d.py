@@ -17,11 +17,11 @@ import pytest
 import scipy.sparse as sp
 
 import oracles as orc
-from cedar_tpu.core.types import InterpDir2 as L, StencilKind
-from cedar_tpu.ops.galerkin2 import coarsen_op
-from cedar_tpu.ops.interp2 import interp_add, restrict, setup_interp
-from cedar_tpu.ops.relax2 import point_relax, setup_recip
-from cedar_tpu.ops.stencil2 import full_offsets, matvec, residual
+from cedar_jax.core.types import InterpDir2 as L, StencilKind
+from cedar_jax.ops.galerkin2 import coarsen_op
+from cedar_jax.ops.interp2 import interp_add, restrict, setup_interp
+from cedar_jax.ops.relax2 import point_relax, setup_recip
+from cedar_jax.ops.stencil2 import full_offsets, matvec, residual
 
 SHAPES = [(8, 8), (9, 7), (10, 9), (7, 10), (16, 12)]
 
@@ -209,7 +209,7 @@ def test_transfers_are_variational(nx, ny, nine):
 
 
 def test_coarse_direct_solve():
-    from cedar_tpu.ops import cg
+    from cedar_jax.ops import cg
 
     rng = np.random.default_rng(3)
     so = random_so(rng, 7, 6, True)

@@ -15,16 +15,16 @@ import pytest
 import scipy.sparse as sp
 
 import oracles3 as orc
-from cedar_tpu.core.types import StencilKind
-from cedar_tpu.ops.galerkin3 import coarsen_op
-from cedar_tpu.ops.interp3 import (
+from cedar_jax.core.types import StencilKind
+from cedar_jax.ops.galerkin3 import coarsen_op
+from cedar_jax.ops.interp3 import (
     interp_add,
     pw_weights,
     restrict,
     setup_interp,
 )
-from cedar_tpu.ops.relax3 import point_relax, setup_recip
-from cedar_tpu.ops.stencil3 import full_offsets, matvec, offdiag_apply, residual
+from cedar_jax.ops.relax3 import point_relax, setup_recip
+from cedar_jax.ops.stencil3 import full_offsets, matvec, offdiag_apply, residual
 
 SHAPES = [(8, 8, 8), (9, 7, 6), (6, 9, 8), (7, 6, 9)]
 
@@ -232,7 +232,7 @@ def test_transfers_are_variational(nx, ny, nz, twenty_seven):
 
 
 def test_coarse_direct_solve():
-    from cedar_tpu.ops import cg
+    from cedar_jax.ops import cg
 
     rng = np.random.default_rng(3)
     so = random_so(rng, 5, 6, 4, True)

@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cedar_tpu import FivePt, Solver2, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.core.types import Dir2, StencilKind
-from cedar_tpu.ops.lines2 import line_relax_x, line_relax_y, setup_lines
-from cedar_tpu.ops.stencil2 import residual
-from cedar_tpu.core.shift import shift2
+from cedar_jax import FivePt, Solver2, gallery
+from cedar_jax.config import Config
+from cedar_jax.core.types import Dir2, StencilKind
+from cedar_jax.ops.lines2 import line_relax_x, line_relax_y, setup_lines
+from cedar_jax.ops.stencil2 import residual
+from cedar_jax.core.shift import shift2
 
 
 def _poisson_like(nx, ny, dx=1.0, dy=1.0):
@@ -143,7 +143,7 @@ def test_line_xy_on_variable_anisotropy():
 def test_pcr_matches_thomas():
     """The PCR path (long lines) must agree with the sequential Thomas
     factorization to roundoff."""
-    import cedar_tpu.ops.lines2 as L
+    import cedar_jax.ops.lines2 as L
 
     rng = np.random.default_rng(11)
     n, m = 128, 24
@@ -168,7 +168,7 @@ def test_pcr_matches_thomas():
 def test_spike_matches_pcr_sweep():
     """The cached interface-reduction (SPIKE) path must reproduce the PCR
     sweep to roundoff — whole zebra sweeps, both axes, odd shapes."""
-    import cedar_tpu.ops.lines2 as L
+    import cedar_jax.ops.lines2 as L
 
     rng = np.random.default_rng(5)
     nx, ny = 129, 97
@@ -211,7 +211,7 @@ def test_ml_relax_knob_selects_log_depth_algorithm():
         "enabled": True, "min-gsz": 3, "factorize": False,
     }
     s1 = Solver2(so, FivePt, Config(ml))
-    from cedar_tpu.ops import lines2
+    from cedar_jax.ops import lines2
     assert isinstance(s0.levels[0].sor_x, lines2.SpikeLines)
     assert not isinstance(s1.levels[0].sor_x, lines2.SpikeLines)
     x0 = s0.solve(b)

@@ -9,8 +9,8 @@ import jax
 import pytest
 from jax.sharding import PartitionSpec as P
 
-import cedar_tpu.perf as perf
-from cedar_tpu.perf import MachineParams, cycle_time, search_schedule
+import cedar_jax.perf as perf
+from cedar_jax.perf import MachineParams, cycle_time, search_schedule
 
 
 SHAPES2 = [(4096, 4096), (2049, 2049), (1025, 1025), (513, 513),
@@ -94,11 +94,15 @@ def test_search_is_optimal_and_monotone():
 
 
 def test_astar_strategy_in_policy():
-    from cedar_tpu.parallel import make_mesh
-    from cedar_tpu.parallel.policy import level_specs
+    from cedar_jax.parallel import make_mesh
+    from cedar_jax.parallel.policy import level_specs
 
     mesh = make_mesh(2, devices=jax.devices("cpu"))
-    shapes = [(256, 256), (128, 128), (64, 64), (32, 32), (16, 16), (8, 8)]
+    # 1024^2: large enough that the H100 model's bandwidth outweighs the
+    # per-op overhead on the fine level (smaller grids price as cheaper
+    # fully replicated)
+    shapes = [(1024, 1024), (512, 512), (256, 256), (128, 128), (64, 64),
+              (32, 32), (16, 16), (8, 8)]
     specs = level_specs(shapes, mesh, strategy="astar")
     assert specs[0] == P("x", "y")
     assert specs[-1] == P(None, None)

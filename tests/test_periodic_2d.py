@@ -9,14 +9,15 @@ case against a scipy sparse direct solve.
 """
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from cedar_tpu import FivePt, Solver2
-from cedar_tpu.config import Config
-from cedar_tpu.core.types import Dir2, StencilKind
-from cedar_tpu.ops.stencil2 import matvec, residual
+from cedar_jax import FivePt, Solver2
+from cedar_jax.config import Config
+from cedar_jax.core.types import Dir2, StencilKind
+from cedar_jax.ops.stencil2 import matvec, residual
 
 
 def periodic_x_poisson(nx, ny):
@@ -29,7 +30,7 @@ def periodic_x_poisson(nx, ny):
 
 
 def sparse_periodic(so, nshape, periodic):
-    from cedar_tpu.ops.stencil2 import full_offsets
+    from cedar_jax.ops.stencil2 import full_offsets
 
     af = full_offsets(jnp.asarray(so), StencilKind.five_pt, periodic)
     n = int(np.prod(nshape))
@@ -97,7 +98,7 @@ def test_cyclic_line_exact_decoupled():
     """With zero y-coupling each x-line is an independent cyclic tridiagonal
     system: ONE zebra sweep must solve the system exactly (the reference's
     PER_x line branch, BMG2_SymStd_relax_lines_x.f90:72-172)."""
-    from cedar_tpu.ops.lines2 import line_relax_x, setup_lines
+    from cedar_jax.ops.lines2 import line_relax_x, setup_lines
 
     nx, ny = 24, 8
     so = np.zeros((3, nx, ny))
@@ -160,7 +161,7 @@ def test_zebra_odd_periodic_orthogonal_raises():
     put two same-color lines adjacent — must raise, not mis-solve."""
     import pytest
 
-    from cedar_tpu.ops.lines2 import line_relax_x, setup_lines
+    from cedar_jax.ops.lines2 import line_relax_x, setup_lines
 
     nx, ny = 16, 9
     so = np.zeros((3, nx, ny))
@@ -228,59 +229,54 @@ def _random_periodic_so(rng, nx, ny, nine, per):
     return so
 
 
-def test_pallas_periodic_sweep_matches_xla(monkeypatch):
-    import jax
+def _periodic_sweep_case(rng, nx, ny, nine, per):
+    from cedar_jax.ops import pallas2, relax2
 
-    from cedar_tpu.ops import pallas2, relax2
+    kind = StencilKind.nine_pt if nine else StencilKind.five_pt
+    assert pallas2.supported((nx, ny), jnp.float32, kind, per)
+    so = jnp.asarray(_random_periodic_so(rng, nx, ny, nine, per),
+                     jnp.float32)
+    q0 = jnp.asarray(rng.standard_normal((nx, ny)), jnp.float32)
+    b = jnp.asarray(rng.standard_normal((nx, ny)), jnp.float32)
+    recip = relax2.setup_recip(so)
+    for updown in ("down", "up"):
+        ref = relax2.point_relax(so, q0, b, recip, kind, updown, per)
+        got = pallas2.point_relax(so, q0, b, kind, updown, periodic=per,
+                                  interpret=True)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(ref), rtol=1e-5,
+            atol=1e-5, err_msg=f"{kind} {per} {updown}")
+    # fused residual
+    ref = relax2.point_relax(so, q0, b, recip, kind, "down", per)
+    rref = residual(so, ref, b, kind, per)
+    got, res = pallas2.point_relax(so, q0, b, kind, "down", True,
+                                   periodic=per, interpret=True)
+    np.testing.assert_allclose(np.asarray(res), np.asarray(rref),
+                               rtol=1e-5, atol=1e-5)
 
-    dd = jax.config.jax_default_device
-    on_tpu = (dd.platform == "tpu" if dd is not None
-              else jax.default_backend() == "tpu")
-    if not on_tpu:
-        monkeypatch.setattr(pallas2, "INTERPRET", True)
 
-    nx, ny = 64, 256
+def test_pallas_periodic_sweep_matches_xla():
     rng = np.random.default_rng(7)
     for nine in (False, True):
-        kind = StencilKind.nine_pt if nine else StencilKind.five_pt
         for per in [(True, False), (False, True), (True, True)]:
-            assert pallas2.supported((nx, ny), jnp.float32, kind, per)
-            so = jnp.asarray(_random_periodic_so(rng, nx, ny, nine, per),
-                             jnp.float32)
-            q0 = jnp.asarray(rng.standard_normal((nx, ny)), jnp.float32)
-            b = jnp.asarray(rng.standard_normal((nx, ny)), jnp.float32)
-            recip = relax2.setup_recip(so)
-            for updown in ("down", "up"):
-                ref = relax2.point_relax(so, q0, b, recip, kind, updown,
-                                         per)
-                got = pallas2.point_relax(so, q0, b, recip, kind, updown,
-                                          periodic=per)
-                np.testing.assert_allclose(
-                    np.asarray(got), np.asarray(ref), rtol=1e-5,
-                    atol=1e-5, err_msg=f"{kind} {per} {updown}")
-            # fused residual
-            ref = relax2.point_relax(so, q0, b, recip, kind, "down", per)
-            rref = residual(so, ref, b, kind, per)
-            got, res = pallas2.point_relax(so, q0, b, recip, kind, "down",
-                                           fuse_residual=True, periodic=per)
-            np.testing.assert_allclose(np.asarray(res), np.asarray(rref),
-                                       rtol=1e-5, atol=1e-5)
+            _periodic_sweep_case(rng, 64, 256, nine, per)
 
 
-def test_pallas_periodic_solver_matches_xla(monkeypatch):
+@pytest.mark.parametrize("nine", [False, True])
+@pytest.mark.parametrize("per", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [(37, 45), (10, 9)])
+def test_pallas_periodic_sweep_odd_shapes(nine, per, shape):
+    """Odd periodic extents: the wrap-pad and the folded color index."""
+    rng = np.random.default_rng(sum(shape) + 3 * nine)
+    _periodic_sweep_case(rng, *shape, nine, per)
+
+
+def test_pallas_periodic_solver_matches_xla():
     """End-to-end: an x-periodic solve with the pallas backend takes the
     periodic fused sweep on the fine level and matches the XLA-backend
-    history."""
-    import jax
-
-    from cedar_tpu.ops import pallas2
-    from cedar_tpu.solver import cycle2
-
-    dd = jax.config.jax_default_device
-    on_tpu = (dd.platform == "tpu" if dd is not None
-              else jax.default_backend() == "tpu")
-    if not on_tpu:
-        monkeypatch.setattr(pallas2, "INTERPRET", True)
+    history.  The kernel runs in the interpreter: the solver is built on
+    the XLA backend, then switched over before its first solve."""
+    from cedar_jax.solver import cycle2
 
     nx, ny = 64, 256
     so = np.zeros((3, nx, ny))
@@ -293,13 +289,14 @@ def test_pallas_periodic_solver_matches_xla(monkeypatch):
         "log": [],
         "grid": {"periodic": [True, False]},
         "solver": {"tol": 1e-6, "max-iter": 6},
+        "kernels": {"backend": "xla"},
     }
-    s_xla = Solver2(jnp.asarray(so, jnp.float32), FivePt,
-                    Config({**base, "kernels": {"backend": "xla"}}))
+    s_xla = Solver2(jnp.asarray(so, jnp.float32), FivePt, Config(base))
     x_xla = s_xla.solve(jnp.asarray(b, jnp.float32))
 
-    pconf = Config({**base, "kernels": {"backend": "pallas"}})
-    s_pal = Solver2(jnp.asarray(so, jnp.float32), FivePt, pconf)
+    s_pal = Solver2(jnp.asarray(so, jnp.float32), FivePt, Config(base))
+    s_pal.settings.kernel_backend = "pallas"
+    s_pal.settings.kernel_interpret = True
     assert cycle2._use_pallas(s_pal.settings, StencilKind.five_pt,
                               (nx, ny), jnp.float32, (True, False))
     x_pal = s_pal.solve(jnp.asarray(b, jnp.float32))

@@ -16,21 +16,21 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 import oracles3 as orc
-from cedar_tpu import SevenPt, Solver3, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.core.types import Dir3, StencilKind
-from cedar_tpu.ops.planes3 import (
+from cedar_jax import SevenPt, Solver3, gallery
+from cedar_jax.config import Config
+from cedar_jax.core.types import Dir3, StencilKind
+from cedar_jax.ops.planes3 import (
     PLANE_SPECS,
     plane_kind2,
     plane_relax,
     setup_planes,
     slice_so,
 )
-from cedar_tpu.ops.stencil3 import coupling, offsets_for, residual
-from cedar_tpu.settings import MLSettings
+from cedar_jax.ops.stencil3 import coupling, offsets_for, residual
+from cedar_jax.settings import MLSettings
 from test_kernels_3d import random_so
 
-from cedar_tpu.ops.stencil2 import full_offsets as full_offsets2
+from cedar_jax.ops.stencil2 import full_offsets as full_offsets2
 
 
 def _sparse2(so2, kind2, nshape):
@@ -107,8 +107,8 @@ def test_plane_relax_vs_exact_oracle(orient, updown):
         },
     })
     settings = MLSettings.from_config(conf)
-    from cedar_tpu.solver.level import Level
-    from cedar_tpu.ops.relax3 import setup_recip
+    from cedar_jax.solver.level import Level
+    from cedar_jax.ops.relax3 import setup_recip
 
     lev = Level(so=jnp.asarray(so), recip=setup_recip(jnp.asarray(so)))
     levels = setup_planes(

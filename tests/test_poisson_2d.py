@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cedar_tpu import FivePt, NinePt, Solver2, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.ops.stencil2 import residual
+from cedar_jax import FivePt, NinePt, Solver2, gallery
+from cedar_jax.config import Config
+from cedar_jax.ops.stencil2 import residual
 
 # Published per-iteration relative l2 norms (reference README.md:51-61),
 # produced by a 7-level hierarchy on the 400x400 problem with V(1,1).

@@ -8,9 +8,9 @@ scaled to the h² discretization error of the smaller grid.
 
 import jax.numpy as jnp
 
-from cedar_tpu import SevenPt, TwentySevenPt, Solver3, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.ops.stencil3 import residual
+from cedar_jax import SevenPt, TwentySevenPt, Solver3, gallery
+from cedar_jax.config import Config
+from cedar_jax.ops.stencil3 import residual
 
 
 def test_poisson3_point_relax():

@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cedar_tpu import FivePt, Solver2, gallery
-from cedar_tpu.config import Config
-from cedar_tpu.schema import ConfigError, validate
-from cedar_tpu.settings import CGType, MLSettings
+from cedar_jax import FivePt, Solver2, gallery
+from cedar_jax.config import Config
+from cedar_jax.schema import ConfigError, validate
+from cedar_jax.settings import CGType, MLSettings
 
 
 def test_typo_key_rejected():

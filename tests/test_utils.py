@@ -3,8 +3,8 @@ util/log.h)."""
 
 import json
 
-from cedar_tpu.utils import log
-from cedar_tpu.utils.timing import TimeLog
+from cedar_jax.utils import log
+from cedar_jax.utils.timing import TimeLog
 
 
 def test_timelog_levels_and_report(tmp_path):

@@ -22,10 +22,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from cedar_tpu import gallery
-from cedar_tpu.core.types import StencilKind
-from cedar_tpu.ops.lines2 import line_relax_x, setup_lines
-from cedar_tpu.parallel import make_mesh
+from cedar_jax import gallery
+from cedar_jax.core.types import StencilKind
+from cedar_jax.ops.lines2 import line_relax_x, setup_lines
+from cedar_jax.parallel import make_mesh
 
 
 def main(n=512):
@@ -57,7 +57,7 @@ def main(n=512):
     local = jax.jit(lambda so, q, b, sor: line_relax_x(
         so, q, b, sor, StencilKind.nine_pt, "down", shard=sh))
 
-    from cedar_tpu.ops.lines2 import setup_lines_spike_dist
+    from cedar_jax.ops.lines2 import setup_lines_spike_dist
 
     spike_ws = setup_lines_spike_dist(
         so_s, StencilKind.nine_pt, "x", mesh, "x", "y")
